@@ -6,7 +6,7 @@ built in this sandbox (zero egress).  This module is a *faithful CPU
 re-implementation of the reference algorithm* using the same OpenCV kernels
 the reference calls (`cv2.ORB_create`, `cv2.FlannBasedMatcher` with LSH,
 `cv2.solvePnPRansac` P3P) plus numpy twins of its g2o optimizations, so that
-the TPU framework's `vs_baseline` is measured-vs-measured on identical
+the JAX framework's `vs_baseline` is measured-vs-measured on identical
 synthetic sequences instead of estimated.
 
 Semantics mirrored 1:1 from the reference (citations are /root/reference):
@@ -32,7 +32,7 @@ Semantics mirrored 1:1 from the reference (citations are /root/reference):
   - backend thread, latest-keyframe-wins                src/backend.cpp:7-17
   - per-frame timing around AddFrame                    app/run_vo.cpp:104-109
 
-This file is intentionally NOT part of the TPU package: it is the measuring
+This file is intentionally NOT part of the JAX package: it is the measuring
 stick, built on the same third-party kernels as the reference.
 """
 
@@ -980,7 +980,7 @@ def run(n_frames=240, width=640, height=480, enable_ba=True, threaded_ba=True,
     ``hard=True`` uses the fr1-like difficulty preset (non-planar boxes,
     depth holes/noise, exposure flicker - ``synthetic.hard_scene``).
     ``frames`` supplies a pre-generated sequence (so tests can run the twin
-    and the TPU pipeline on the SAME rendered frames without paying the
+    and the JAX pipeline on the SAME rendered frames without paying the
     renderer twice)."""
     synthetic = _load_synthetic()
     # cv2's RANSAC and FLANN-LSH draw from OpenCV's global RNG; unseeded,

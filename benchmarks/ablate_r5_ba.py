@@ -1,17 +1,13 @@
-"""Round-5: single-stream BA cost ablation at the official bench preset
-(VERDICT r4 task 7).
+"""Single-stream local-BA cost ablation at the bench preset.
 
-Round 3 measured local BA as ~36% of the frame budget at the OLD config;
-the round-4 151-FPS preset shrank the solve (ba_max_points 1024 / poses 8)
-but no ablation existed for it.  This runs the EXACT ``bench.bench_single``
-protocol (same windows, same data anchors) twice - full VO vs
-``enable_local_optimization=False`` - and prints both numbers plus the BA
-share of steady-state frame time.  If the share is >10%, overlapping BA
-(fork state, solve on the copy, merge at the keyframe boundary - the
-reference's latest-wins contract, ``include/myslam/backend.h:33-37``) is
-the next lever; below that it is not worth the merge complexity.
+Runs the EXACT ``bench.bench_single`` protocol (same windows, same data
+anchors) twice - full VO vs ``enable_local_optimization=False`` - and
+prints both numbers plus the BA share of steady-state frame time.  If the
+share is large, overlapping BA (fork state, solve on the copy, merge at the
+keyframe boundary - the reference's latest-wins contract,
+``include/myslam/backend.h:33-37``) is the next lever.
 
-Artifact: ``benchmarks/ablate_r5_ba.json``.
+Artifact: ``benchmarks/ablate_r5_ba.json`` (git-ignored).
 """
 import json
 import os

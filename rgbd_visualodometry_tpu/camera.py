@@ -1,6 +1,6 @@
 """Pinhole RGB-D camera model.
 
-Vectorized, TPU-friendly equivalent of the reference ``Camera`` class
+Vectorized equivalent of the reference ``Camera`` class
 (``include/myslam/camera.h:29-69``, ``src/camera.cpp:41-86``).  The full
 transform family world <-> camera <-> pixel is reproduced; all functions
 broadcast over leading batch dimensions of the point arrays, so one call

@@ -8,7 +8,7 @@ hashable so it can be passed as a static argument to jitted step functions
 (capacities and thresholds become compile-time constants, which is what XLA's
 static-shape model wants).
 
-Extra, TPU-only keys (fixed capacities, RANSAC lane counts, ...) have defaults
+Extra keys of this implementation (fixed capacities, RANSAC lane counts, ...) have defaults
 mirroring the reference's hard-coded constants, e.g. RANSAC 100 iters / 4 px /
 P3P seeded with the previous pose (``src/frontend.cpp:238-241``) and Huber
 delta sqrt(7.815) with 10+10 LM iterations (``src/frontend.cpp:282-310``,
@@ -124,11 +124,6 @@ class VOConfig:
     ba_min_frame_gap: int = 0
     ba_max_poses: int = 16  # covisible-window pose capacity (padded)
     ba_max_points: int = 8192  # mappoint capacity inside one BA solve
-    # bf16 for the per-edge block products inside the LM body (f32
-    # accumulation and solves).  ~2x less HBM traffic per iteration; the
-    # normal-equation blocks lose ~3 significand bits, well inside the
-    # robustified solver's tolerance (chi2 gating and costs stay f32).
-    ba_bf16: bool = True
     # BRIEF pattern-rotation quantization bins for the diff-table matmul
     # descriptor path (ops/orb.py); more bins = closer to the continuous
     # sampler at linearly more descriptor-matmul FLOPs.  240-frame synthetic
@@ -137,28 +132,27 @@ class VOConfig:
     orb_angle_bins: int = 120
     # rotation-bin chunk of the BRIEF diff-table matmul: each chunk
     # materializes an [N, chunk, 256] comparison slab.  Small keeps peak
-    # HBM bounded for many-stream batching; single-stream can afford
+    # device memory bounded for many-stream batching; single-stream can afford
     # bigger chunks (fewer, larger matmuls)
     orb_brief_chunk: int = 6
-    # bf16 operands (f32 accumulate) for the BRIEF diff-table matmul on
-    # device; False forces the f32 path everywhere so the CPU-tested
-    # numerics can be reproduced on TPU (parallel of ba_bf16)
+    # bf16 operands (f32 accumulate) for the BRIEF diff-table matmul on an
+    # accelerator; False forces the f32 path everywhere so the CPU-tested
+    # numerics can be reproduced on the GPU
     orb_bf16: bool = True
     # bf16 for the patch-canvas row-take and the one-hot column-select
-    # matmul in ORB extract (f32 accumulation) - halves the HBM traffic of
-    # the largest per-frame intermediate ([N, 2*PATCH, padded_width], ~88 MB
-    # per 640x480 stream).  Pixel values lose <1 gray level, the same
-    # magnitude as the sampler's own 0.5 px offset rounding; TPU only (the
-    # CPU path stays f32 like orb_bf16).  Off until measured to win.
+    # matmul in ORB extract (f32 accumulation) - halves the memory traffic
+    # of the largest per-frame intermediate ([N, 2*PATCH, padded_width],
+    # ~88 MB per 640x480 stream).  Pixel values lose <1 gray level, the same
+    # magnitude as the sampler's own 0.5 px offset rounding; accelerator
+    # only (the CPU path stays f32 like orb_bf16).  Off until measured to win.
     orb_patch_bf16: bool = False
 
     # ---- descriptor matching layout ----
-    # True: match straight from the packed [C, 8] uint32 descriptor pool
-    # (ops/pallas_match kernel) and drop the persistent [C, 256] int8
-    # bipolar pool from VOState - 8x less map memory per stream.  Measured
-    # on v5e it is 0.2-0.3 ms/frame SLOWER than the dense-pool matmul
-    # (see ops/matching.nearest_keypoints_packed), so the default trades
-    # memory for time only when a deployment is HBM-capped.
+    # True: match straight from the packed [8, C] uint32 descriptor pool
+    # (ops/matching.nearest_keypoints_packed: unpack + int8 matmul inside
+    # the step) and drop the persistent [C, 256] int8 bipolar pool from
+    # VOState - 8x less map memory per stream.  Which layout is faster on
+    # the GPU is an open measurement (PERF.md).
     packed_matching: bool = False
 
     # ---- tracking-map / covisibility (frame.cpp:114, frontend.cpp:163-166) --
@@ -338,22 +332,48 @@ class VOConfig:
         return dataclasses.replace(self, **kw)
 
 
+def _parse_scalar(raw: str):
+    """One unquoted YAML scalar of the flat subset: int, float, true/false,
+    or a bare string."""
+    low = raw.lower()
+    if low in ("true", "false"):
+        return low == "true"
+    for cast in (int, float):
+        try:
+            return cast(raw)
+        except ValueError:
+            pass
+    return raw
+
+
 def _parse_opencv_yaml(text: str) -> dict:
-    """Parse an OpenCV FileStorage YAML file (the reference's config format).
+    """Parse the flat ``key: value`` subset of OpenCV FileStorage YAML that
+    the reference's config files use (``src/config.cpp:29``).
 
-    OpenCV writes a ``%YAML:1.0`` directive that standard YAML parsers
-    reject, so it is stripped before delegating to PyYAML.  Mirrors what
-    ``cv::FileStorage`` gives the reference (``src/config.cpp:29``).
+    Handles the ``%YAML:1.0`` directive, ``---`` separators, blank lines,
+    ``#`` comments and quoted or bare scalar values.  Nested maps,
+    sequences and multi-line values are not part of the format and raise
+    ``ValueError``.
     """
-    import yaml
-
-    lines = [
-        ln
-        for ln in text.splitlines()
-        if not ln.startswith("%YAML") and ln.strip() != "---"
-    ]
-    data = yaml.safe_load("\n".join(lines))
-    return data or {}
+    data = {}
+    for lineno, line in enumerate(text.splitlines(), 1):
+        stripped = line.strip()
+        if not stripped or stripped.startswith(("#", "%YAML")) or stripped == "---":
+            continue
+        key, sep, value = stripped.partition(":")
+        value = value.strip()
+        if value[:1] in ("'", '"'):  # quoted: the text up to the closing quote
+            end = value.find(value[0], 1)
+            ok = end > 0 and value[end + 1 :].strip()[:1] in ("", "#")
+            parsed = value[1:end]
+        else:
+            value = value.split(" #", 1)[0].strip()
+            ok = bool(value) and value[0] not in "[{|>&*!"
+            parsed = _parse_scalar(value)
+        if not (sep and key and ok) or line[0].isspace():
+            raise ValueError(f"line {lineno}: not a flat 'key: value' entry: {line!r}")
+        data[key.strip()] = parsed
+    return data
 
 
 def load_config(path: str) -> VOConfig:

@@ -226,7 +226,7 @@ class SyntheticScene:
 
 
 def hard_scene(width: int = 640, height: int = 480, **kw) -> SyntheticScene:
-    """fr1-like difficulty preset (VERDICT r2 task 2): non-planar boxes,
+    """fr1-like difficulty preset: non-planar boxes,
     10% blobby depth holes + edge shadowing, Kinect z^2 axial noise, mild
     auto-exposure flicker.  Keyword overrides pass through to the scene."""
     params = dict(

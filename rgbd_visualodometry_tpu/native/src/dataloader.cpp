@@ -1,6 +1,6 @@
 // Native RGB-D dataset loader: libpng decode + multithreaded prefetch.
 //
-// TPU-native runtime counterpart of the reference's host IO path
+// Native runtime counterpart of the reference's host IO path
 // (cv::imread color + 16-bit depth per frame inside the main loop,
 // app/run_vo.cpp:91-92).  The reference decodes synchronously on the
 // tracking thread; here a worker pool decodes frames ahead of the consumer

@@ -1,12 +1,12 @@
 """FAST-9/16 corner detection + Harris response, fully vectorized.
 
-TPU-native replacement for the detector inside ``cv::ORB`` (reference
+Data-parallel replacement for the detector inside ``cv::ORB`` (reference
 ``src/frontend.cpp:35-37,153``).  Instead of the per-pixel branchy C scan
 OpenCV uses, the whole image is tested at once: the 16 circle pixels become
 16 statically-shifted views of the padded image, and the segment test
 ("9 contiguous of 16 all brighter/darker than center +- t") becomes a max
-over 16 windowed minima - pure elementwise VPU work with no data-dependent
-control flow, which is exactly what XLA wants.
+over 16 windowed minima - pure elementwise work with no data-dependent
+control flow, which XLA fuses into one loop kernel.
 
 The returned score is the classic FAST score: the largest threshold at which
 the pixel would still be a corner, ``max over arcs of (min over the 9-arc of
@@ -42,11 +42,10 @@ def fast_score(gray: jnp.ndarray) -> jnp.ndarray:
     h, w = gray.shape
     p = jnp.pad(gray, 3, mode="edge")
     # ring differences as a PLAIN LIST of [H, W] planes.  Never jnp.stack
-    # them: a stacked [16/24, H, W] tensor is materialized to HBM between
-    # the window reductions, while a list of 2-D planes keeps the whole
-    # computation one fused elementwise kernel (read image once, write
-    # score once).  Measured on v5e at batch 8: 6.9 ms -> 0.55 ms for the
-    # 640x480 level.
+    # them: a stacked [16/24, H, W] tensor is materialized in device memory
+    # between the window reductions, while a list of 2-D planes keeps the
+    # whole computation one fused elementwise kernel (read image once,
+    # write score once).
     d = [p[3 + dy : 3 + dy + h, 3 + dx : 3 + dx + w] - gray for dy, dx in _CIRCLE]
     doubled = d + d[: ARC_LENGTH - 1]  # 24 planes (list concat, not concatenate)
 
@@ -79,42 +78,20 @@ def harris_response(gray: jnp.ndarray, block: int = 7, k: float = 0.04) -> jnp.n
     return (det - k * tr * tr) * (1.0 / (255.0**4))
 
 
-def detect_level(
-    gray: jnp.ndarray,
-    threshold: float,
-    border: int,
-    topk: int,
-    use_pallas: bool | None = None,
-):
+def detect_level(gray: jnp.ndarray, threshold: float, border: int, topk: int):
     """Detect up to ``topk`` FAST corners, Harris-ranked, on one level.
 
     Returns ``(xy int32 [topk, 2] in (x, y) order, response f32 [topk],
     valid bool [topk])``.  Static output shapes: missing detections are
     masked out, never dropped (the key XLA design constraint - see
     SURVEY.md section 7 hard part #1).
-
-    ``use_pallas`` selects the fused Pallas kernel
-    (:mod:`rgbd_visualodometry_tpu.ops.pallas_fast`) instead of the pure-XLA
-    formulation.  Both are numerically identical away from the 1-pixel image
-    border (excluded by the ``border`` mask anyway).  Default is the XLA
-    path: on v5e, XLA's own fusion of the shifted-slice formulation measured
-    ~100x faster than the handwritten kernel (the unaligned halo slices
-    defeat Mosaic's vector layout) - a textbook "let XLA fuse" case.
     """
     h, w = gray.shape
-    if use_pallas is None:
-        use_pallas = False
-    if use_pallas:
-        from rgbd_visualodometry_tpu.ops import pallas_fast
-
-        nms_score = pallas_fast.fast_score_nms(gray)
-        mask = nms_score > threshold
-    else:
-        score = fast_score(gray)
-        is_corner = score > threshold
-        # 3x3 non-maximum suppression on the FAST score
-        nms = score >= im.maxpool3x3(score)
-        mask = is_corner & nms
+    score = fast_score(gray)
+    is_corner = score > threshold
+    # 3x3 non-maximum suppression on the FAST score
+    nms = score >= im.maxpool3x3(score)
+    mask = is_corner & nms
 
     ys = jnp.arange(h)[:, None]
     xs = jnp.arange(w)[None, :]

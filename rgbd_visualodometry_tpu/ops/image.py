@@ -1,6 +1,6 @@
 """Basic image operations: grayscale, pyramid resize, Gaussian blur.
 
-These feed the ORB frontend (TPU-native replacement for the preprocessing
+These feed the ORB frontend (replacement for the preprocessing
 ``cv::ORB`` performs internally before detection - pyramid construction and
 the 7x7 sigma=2 Gaussian blur applied before BRIEF sampling).  Everything is
 statically shaped: pyramid level sizes are Python ints derived from the

@@ -1,6 +1,6 @@
 """Motion-only bundle adjustment: Levenberg-Marquardt on SE(3).
 
-TPU-native replacement for the g2o pose-only BA in the tracking loop
+Batched replacement for the g2o pose-only BA in the tracking loop
 (``src/frontend.cpp:256-312`` with ``VertexPose`` / ``UnaryEdgeProjection``
 from ``include/myslam/g2o_types.h:47-108``):
 
@@ -116,8 +116,8 @@ def lm_pose_round(
         J = pose_jacobian(p_c, camera)
         w = maskf * _huber_weights(jnp.sum(e * e, axis=-1), huber_delta)
         # normal equations: (sum w J^T J) delta = -(sum w J^T e)
-        H = jnp.einsum("m,mki,mkj->ij", w, J, J)
-        g = jnp.einsum("m,mki,mk->i", w, J, e)
+        H = jnp.einsum("m,mki,mkj->ij", w, J, J, precision=jax.lax.Precision.HIGHEST)
+        g = jnp.einsum("m,mki,mk->i", w, J, e, precision=jax.lax.Precision.HIGHEST)
         Hd = H + st.lam * jnp.eye(6, dtype=H.dtype)
         delta = -cholesky_solve(Hd, g)
         cand = se3.normalize(se3.compose(se3.exp(delta), st.pose))

@@ -26,7 +26,7 @@ For every keyframe pair this module accumulates weighted Kabsch moments
 and solves Horn's closed form per pair, producing a relative-pose edge
 ``T_i^{-1} T_j`` ready for ``ops/posegraph.optimize_pose_graph``.
 
-TPU-first shape:
+Shape of the computation:
 
 - ONE pass over the ``[C, M]`` observation table, chunked with
   ``lax.scan`` (bounded memory), building all ``M x M`` within-row pairs
@@ -123,7 +123,9 @@ def coobservation_moments(state, cam, chunk_rows: int = 2048):
         cnt = cnt.at[idx_i, idx_j].add(wf)
         sa = sa.at[idx_i, idx_j].add(af * wf[:, None])
         sb = sb.at[idx_i, idx_j].add(bwf)
-        mba = mba.at[idx_i, idx_j].add(jnp.einsum("na,nb->nab", bwf, af))
+        mba = mba.at[idx_i, idx_j].add(
+            jnp.einsum("na,nb->nab", bwf, af, precision=jax.lax.Precision.HIGHEST)
+        )
         return (cnt, sa, sb, mba), None
 
     f32 = jnp.float32
@@ -255,7 +257,7 @@ def _register_pair(di, pi, vi, dj, pj, vj, match_ratio, min_match_distance, inli
         cw = jnp.maximum(jnp.sum(w), 1e-9)
         abar = jnp.sum(a * w[:, None], axis=0) / cw
         bbar = jnp.sum(b * w[:, None], axis=0) / cw
-        S = jnp.einsum("n,na,nb->ab", w, b - bbar, a - abar)
+        S = jnp.einsum("n,na,nb->ab", w, b - bbar, a - abar, precision=jax.lax.Precision.HIGHEST)
         q = horn_quat_from_crosscov(S)
         t = abar - se3.quat_rotate(q, bbar)
         return se3.make(q, t)

@@ -1,15 +1,15 @@
-"""Exact Hamming descriptor matching on the MXU.
+"""Exact Hamming descriptor matching as an int8 matrix product.
 
-TPU-native replacement for ``cv::FlannBasedMatcher(LshIndexParams(5,10,2))``
-(reference ``src/frontend.cpp:33,186-215``).  The LSH index is an
-*approximate* nearest-neighbor structure; on TPU we can afford the exact
+Replaces ``cv::FlannBasedMatcher(LshIndexParams(5,10,2))`` (reference
+``src/frontend.cpp:33,186-215``).  The LSH index is an *approximate*
+nearest-neighbor structure; on an accelerator we can afford the exact
 brute-force search: with descriptors stored as bipolar int8 vectors in
 {-1,+1}^256, the Hamming distance is an affine function of the dot product,
 
     hamming(a, b) = (256 - <a_bip, b_bip>) / 2,
 
-so the whole (candidates x keypoints) distance matrix is one int8 matmul on
-the systolic array - exactness replaces approximation at lower cost.
+so the whole (candidates x keypoints) distance matrix is one int8 matmul
+with int32 accumulation - exact, and exactness replaces approximation.
 
 The distance filter keeps the reference's rule: a match survives iff
 ``dist <= max(min_dist * match_ratio, 30)`` (``src/frontend.cpp:190-211``).
@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 
 BIG = jnp.int32(1 << 20)
+BITS = 256  # descriptor bits = 8 packed uint32 words
 
 
 def hamming_matrix(a_bip: jnp.ndarray, b_bip: jnp.ndarray) -> jnp.ndarray:
@@ -75,25 +76,46 @@ def nearest_keypoints(
     return NearestKeypoints(kp_index=best_kp, distance=best_d)
 
 
+def unpack_bipolar(desc: jnp.ndarray) -> jnp.ndarray:
+    """[..., 8] uint32 -> [..., 256] int8 in {-1, +1} (bit order: word-major,
+    LSB first - must match ops/orb.py's packing)."""
+    shifts = jnp.arange(32, dtype=jnp.uint32)
+    bits = (desc[..., :, None] >> shifts[None, :]) & jnp.uint32(1)
+    flat = bits.reshape(desc.shape[:-1] + (BITS,))
+    return (flat.astype(jnp.int8) << 1) - 1
+
+
+def hamming_matrix_packed_T(cand_descT: jnp.ndarray, kp_bip: jnp.ndarray) -> jnp.ndarray:
+    """[8, C] uint32 packed pool x [N, 256] int8 bipolar -> [N, C] int32.
+
+    Unpacks the C-minor pool to a ``[256, C]`` bipolar plane (row
+    ``32*w + b`` is bit ``b`` of word ``w``, the order of
+    :func:`unpack_bipolar`) and contracts it with one int8 matmul, so the
+    distances equal :func:`hamming_matrix` on the unpacked descriptors."""
+    shifts = jnp.arange(32, dtype=jnp.uint32)
+    bits = (cand_descT[:, None, :] >> shifts[None, :, None]) & jnp.uint32(1)
+    a = (bits.reshape(BITS, cand_descT.shape[1]).astype(jnp.int8) << 1) - 1
+    dot = jax.lax.dot_general(
+        kp_bip, a, dimension_numbers=(((1,), (0,)), ((), ())),
+        preferred_element_type=jnp.int32,
+    )
+    return (BITS - dot) // 2
+
+
 def nearest_keypoints_packed(
     cand_descT: jnp.ndarray,  # [8, C] uint32 packed pool (C-minor layout)
     kp_bip: jnp.ndarray,  # [N, 256] int8 bipolar keypoints
     kp_mask: jnp.ndarray,
 ) -> NearestKeypoints:
-    """:func:`nearest_keypoints` computed straight from the PACKED pool
-    (``ops.pallas_match``), dropping the persistent ``[C, 256]`` int8 copy
-    (8x less map memory).  Production measurement on v5e (N=512, argmin
-    included): dense-pool 0.66 / 0.92 ms vs packed 0.88 / 1.27 ms at
-    C=16k / 64k - the unpack costs more than the saved bandwidth at these
-    overhead-bound sizes, so ``VOConfig.packed_matching`` defaults False
-    and this path exists for memory-capped deployments (more streams per
-    chip at the cost of ~0.2-0.3 ms per frame).
+    """:func:`nearest_keypoints` computed straight from the PACKED pool,
+    so the map state needs no persistent ``[C, 256]`` int8 copy (8x less
+    map memory; ``VOConfig.packed_matching``).  The unpack runs inside the
+    step on every call; which layout is faster on the GPU is an open
+    measurement (``PERF.md``).
 
     Takes the C-minor ``mp_desc`` pool (``[8, C]``); the distance matrix
     comes back ``[N, C]`` and the per-candidate reductions run over axis 0.
     """
-    from rgbd_visualodometry_tpu.ops.pallas_match import hamming_matrix_packed_T
-
     d = hamming_matrix_packed_T(cand_descT, kp_bip)  # [N, C]
     d = jnp.where(kp_mask[:, None], d, BIG)
     best_kp = jnp.argmin(d, axis=0).astype(jnp.int32)

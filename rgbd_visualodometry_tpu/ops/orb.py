@@ -2,9 +2,9 @@
 centroid orientation -> rotated BRIEF, all in one statically-shaped jitted
 program.
 
-TPU-native replacement for ``cv::ORB::create(nfeatures, scaleFactor,
+Data-parallel replacement for ``cv::ORB::create(nfeatures, scaleFactor,
 nlevels).detectAndCompute`` (reference ``src/frontend.cpp:35-37,150-154``).
-Design differences forced (and enabled) by the TPU:
+Design differences forced (and enabled) by static-shape XLA programs:
 
 - Fixed feature budget: every level yields exactly ``K_l`` slots (geometric
   allocation like cv::ORB) with a validity mask - variable keypoint counts
@@ -16,15 +16,23 @@ Design differences forced (and enabled) by the TPU:
 - Pattern rotation is quantized to ``angle_bins`` steps (the original ORB
   paper used 30 = 12-degree steps), which lets the BRIEF
   comparisons for every bin be precomputed as one signed-difference matmul
-  (see ``_brief_diff_table``) - per-element gathers are the slowest
-  primitive on TPU and are avoided entirely on the descriptor path.  The
+  (see ``_brief_diff_table``) - the descriptor path has no per-element
+  gathers.  The
   default of 120 bins (3 degrees, matching ``VOConfig.orb_angle_bins``)
   puts the binning error (~0.34 px = r_max * dtheta/2) below the sampler's
   own integer-offset rounding; measured 240-frame ATE saturates there
   (90 bins 0.83 cm -> 120 bins 0.73 cm, see config.py).
 - Descriptors are emitted twice: packed ``uint32[8]`` (storage, 256 bits)
-  and bipolar ``int8[256]`` (so Hamming matching can run on the MXU as an
-  int8 matmul - see :mod:`rgbd_visualodometry_tpu.ops.matching`).
+  and bipolar ``int8[256]`` (so Hamming matching runs as an int8 matmul -
+  see :mod:`rgbd_visualodometry_tpu.ops.matching`).
+
+Matmul numerics: the one-hot column select and the orientation moments run
+f32 at ``Precision.HIGHEST`` (exact selection, no TF32); the BRIEF
+diff-table matmul runs bf16 by design on accelerators (``use_bf16``), and
+so does the column select under ``patch_bf16``.  On the CPU backend both
+stay f32, for two reasons: the CPU test suite's oracles (OpenCV, numpy) are
+f32, and XLA:CPU's dot thunk refuses the BRIEF matmul's bf16 x bf16 -> f32
+("Unsupported element type for DotThunk", JAX 0.9.0).
 """
 
 from __future__ import annotations
@@ -165,8 +173,8 @@ def _brief_diff_table(angle_bins: int) -> np.ndarray:
     Column ``q*256 + s`` holds ``e_{p1} - e_{p0}`` for BRIEF test ``s``
     rotated by bin angle ``2*pi*q/angle_bins`` (offsets rounded and clipped
     exactly like the per-keypoint sampler).  ``patch_flat @ table > 0``
-    then reproduces every test's comparison for every bin at once on the
-    MXU - no per-element gathers.  cv::ORB itself quantizes the pattern
+    then reproduces every test's comparison for every bin at once in one
+    matmul - no per-element gathers.  cv::ORB itself quantizes the pattern
     rotation (12-degree steps); ``angle_bins=30`` mirrors that.
     """
     pat = BRIEF_PATTERN  # [256, 2, 2] (x, y)
@@ -249,16 +257,13 @@ def extract(
         xy, resp, valid = fast.detect_level(img, threshold, b, quota)
         dets.append((lvl, sc, quota, xy, resp, valid))
 
-    # Phase 2: patch sampling WITHOUT per-element gathers.  TPU gathers run
-    # at ~1 element / 8 cycles, which made the per-keypoint patch + BRIEF
-    # sampling (500 x 961 + 500 x 512 elements) the single most expensive
-    # stage of the whole VO pipeline (~51 ms of a 77 ms batched-8 step).
+    # Phase 2: patch sampling WITHOUT per-element gathers (the per-keypoint
+    # patch + BRIEF sampling is 500 x 961 + 500 x 512 elements per frame).
     # Instead:
     #   1. every level is padded onto a common [ph0, pw0] canvas (raw and
     #      blurred stacked), so keypoint rows live in one 3-D array;
     #   2. patch ROWS are fetched with a contiguous row-take (vectorizes),
-    #      and the column window is cut with a batched one-hot matmul on
-    #      the MXU;
+    #      and the column window is cut with a batched one-hot matmul;
     #   3. the intensity-centroid moments are a [N, PATCH^2] @ [PATCH^2, 2]
     #      matmul;
     #   4. BRIEF comparisons for ALL angle bins are one
@@ -292,9 +297,10 @@ def extract(
         canvases.append(jnp.pad(blurred_p, ((0, ph0 - h), (0, pw0 - w))))
     # [2L * ph0, pw0]: raw canvas of level l at slot 2l, blurred at 2l+1.
     # bf16 canvas (config orb_patch_bf16) halves the row-take + column-
-    # select HBM traffic - the largest per-frame intermediate; pixel values
-    # lose <1 gray level (same order as the sampler's 0.5 px rounding), and
-    # all downstream reductions accumulate f32.  TPU-only, like orb_bf16.
+    # select memory traffic - the largest per-frame intermediate; pixel
+    # values lose <1 gray level (same order as the sampler's 0.5 px
+    # rounding), and all downstream reductions accumulate f32.  Like
+    # orb_bf16 it applies off the CPU backend only (module docstring).
     pt = (
         jnp.bfloat16
         if (patch_bf16 and jax.default_backend() != "cpu")
@@ -324,6 +330,7 @@ def extract(
     patches2 = jax.lax.dot_general(
         rows, colsel,
         dimension_numbers=(((2,), (1,)), ((0,), (0,))),
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=jnp.float32,
     )  # [N, 2*PATCH, PATCH]
     raw_flat = patches2[:, :PATCH, :].reshape(n_all, PATCH * PATCH)
@@ -333,18 +340,19 @@ def extract(
     cxy = jnp.stack(
         [jnp.asarray(_CX).reshape(-1), jnp.asarray(_CY).reshape(-1)], axis=1
     )  # [PATCH^2, 2]
-    m = raw_flat @ cxy  # [N, 2]
+    m = jnp.matmul(raw_flat, cxy, precision=jax.lax.Precision.HIGHEST)  # [N, 2]
     angle = jnp.arctan2(m[:, 1], m[:, 0])
 
-    # BRIEF: all bins at once, then one-hot bin select.  bf16 operands with
-    # f32 accumulation: blurred pixel values fit bf16's 8-bit significand to
-    # within half a gray level - the same magnitude as the sampler's own
-    # 0.5 px offset rounding - and the matmul is the biggest FLOP block of
-    # the whole frontend ([N, 33^2] @ [33^2, Q*256]).
-    # CPU's dot thunk lacks bf16 x bf16 -> f32; only the TPU path narrows.
-    # ``use_bf16=False`` (config ``orb_bf16``) forces f32 on device too, so
-    # the CI-tested numeric path can be reproduced on TPU and the bf16
-    # delta bounded (see tests/test_orb.py::test_brief_bf16_parity_on_tpu).
+    # BRIEF: all bins at once, then one-hot bin select.  bf16 operands BY
+    # DESIGN, with f32 accumulation: blurred pixel values fit bf16's 8-bit
+    # significand to within half a gray level - the same magnitude as the
+    # sampler's own 0.5 px offset rounding - and the matmul is the biggest
+    # FLOP block of the whole frontend ([N, 33^2] @ [33^2, Q*256]).  The
+    # CPU backend keeps f32 (module docstring: the CPU suite's oracles, and
+    # XLA:CPU's dot thunk refuses this bf16 dot); ``use_bf16=False``
+    # (config ``orb_bf16``) forces f32 on the
+    # accelerator too, so the CPU-tested numerics can be reproduced there
+    # and the bf16 delta bounded (``chip_smoke.py``, kernel phase).
     bt = (
         jnp.bfloat16
         if (use_bf16 and jax.default_backend() != "cpu")
@@ -357,8 +365,8 @@ def extract(
     )
     # chunk the per-bin matmul + bin select so the [N, Q, 256] comparison
     # tensor is never materialized whole (at 64 batched streams it would be
-    # ~3 GB of HBM); each chunk's slab dies after its masked reduction.
-    # Single-stream runs have HBM headroom - larger chunks mean fewer,
+    # ~3 GB of device memory); each chunk's slab dies after its masked
+    # reduction.  Single-stream runs have headroom - larger chunks mean fewer,
     # bigger matmuls (config orb_brief_chunk).
     chunk = brief_chunk
     bits_acc = jnp.zeros((n_all, N_BITS), jnp.float32)
@@ -367,6 +375,7 @@ def extract(
         d = jax.lax.dot_general(
             blur_disc, diff_table[:, q0 * N_BITS : (q0 + qn) * N_BITS].astype(bt),
             dimension_numbers=(((1,), (0,)), ((), ())),
+            precision=jax.lax.Precision.HIGHEST,
             preferred_element_type=jnp.float32,
         ).reshape(n_all, qn, N_BITS)
         sel = (

@@ -1,6 +1,6 @@
 """Lane-parallel RANSAC pose estimation for RGB-D 3D-2D correspondences.
 
-TPU-native replacement for ``cv::solvePnPRansac(..., 100 iters, 4.0 px,
+Lane-parallel replacement for ``cv::solvePnPRansac(..., 100 iters, 4.0 px,
 0.99 conf, SOLVEPNP_P3P, useExtrinsicGuess=true)`` at
 ``src/frontend.cpp:233-242``.  Instead of OpenCV's sequential
 hypothesize-and-test loop, all hypotheses are generated and scored at once:
@@ -10,7 +10,7 @@ hypothesize-and-test loop, all hypotheses are generated and scored at once:
   the same keypoints back-projected through the current *depth image*
   (camera frame).  For an RGB-D sensor this minimal solver is available
   "for free" and is branch-free - a batched quaternion eigensolve - which
-  suits the TPU far better than P3P's quartic root-finding.
+  suits a data-parallel device far better than P3P's quartic root-finding.
 - **Depth-free lanes** (fraction ``depth_free_fraction``) sample 3 matches
   needing only a valid *match* and solve the 3-point 2D-3D problem with a
   few damped Gauss-Newton steps from the seed pose (6 residuals, 6 DOF - a
@@ -19,7 +19,7 @@ hypothesize-and-test loop, all hypotheses are generated and scored at once:
   never touches the depth channel (``src/frontend.cpp:238-241``), so a
   depth-starved frame (real Kinect frames lose 10-50% of depth to holes)
   must still produce pose hypotheses.  Without these lanes only the seed
-  lane would survive total depth dropout (VERDICT r2 weak #6).
+  lane would survive total depth dropout.
 - Lane 0 is always the previous pose, reproducing the reference's
   ``useExtrinsicGuess=true`` seeding.
 - Scoring reproduces the reference contract: a correspondence is an inlier
@@ -48,13 +48,13 @@ class RansacResult(NamedTuple):
 
 
 # Closed-form rigid alignment (Horn quaternion method, batched Jacobi
-# eigensolver - no SVD, compiles to fused elementwise ops on TPU).
+# eigensolver - no SVD, compiles to fused elementwise ops).
 from rgbd_visualodometry_tpu.ops.smalleig import kabsch_quat as _kabsch  # noqa: E402
 
 
 def _gn_three_point(pose0, p3, uv3, camera, iterations: int = 6, damping: float = 1e-4):
     """Solve one 3-point 2D-3D pose (6 residuals = 6 DOF) by damped
-    Gauss-Newton from ``pose0``.  The branch-free TPU replacement for one
+    Gauss-Newton from ``pose0``.  The branch-free replacement for one
     P3P evaluation: fixed iteration count, one 6x6 Cholesky per step.
     vmapped over RANSAC lanes."""
     from rgbd_visualodometry_tpu.ops import lm
@@ -63,8 +63,8 @@ def _gn_three_point(pose0, p3, uv3, camera, iterations: int = 6, damping: float 
     def body(_, pose):
         e, p_c = lm.reprojection_residuals(pose, p3, uv3, camera)
         J = lm.pose_jacobian(p_c, camera)  # [3, 2, 6]
-        H = jnp.einsum("mki,mkj->ij", J, J)
-        g = jnp.einsum("mki,mk->i", J, e)
+        H = jnp.einsum("mki,mkj->ij", J, J, precision=jax.lax.Precision.HIGHEST)
+        g = jnp.einsum("mki,mk->i", J, e, precision=jax.lax.Precision.HIGHEST)
         Hd = H + damping * jnp.eye(6, dtype=H.dtype)
         delta = -cholesky_solve(Hd, g)
         # behind-camera / degenerate samples produce wild steps; clamping

@@ -7,16 +7,16 @@ constraints (sequential odometry edges plus any number of loop-closure
 edges), relax the whole graph with damped Gauss-Newton on the SE(3)
 manifold.
 
-TPU-first shape of the solver:
+Shape of the solver:
 
 - All edge residuals and their Jacobians evaluate in one ``vmap`` (the
   Jacobians come from ``jax.jacfwd`` through the same ``exp``/``log``
   chain the rest of the codebase uses - exact, and traced once).
 - The normal equations assemble into dense ``[K, K, 6, 6]`` blocks with
   four scatter-adds (K = keyframes, small) and solve as ONE dense
-  ``[6K, 6K]`` Cholesky - on a TPU a dense solve of a few hundred rows
-  beats any sparse factorization, exactly like the backend's reduced
-  camera system (``pipeline/backend.py``).
+  ``[6K, 6K]`` Cholesky - a dense solve of a few hundred rows keeps the
+  program one static shape, like the backend's reduced camera system
+  (``pipeline/backend.py``).
 - Fixed iteration count under ``jax.lax.fori_loop`` -> a single compiled
   program, no Python in the loop.
 
@@ -201,11 +201,11 @@ def optimize_pose_graph(
         JiT = jnp.swapaxes(J_i, -1, -2)
         JjT = jnp.swapaxes(J_j, -1, -2)
         w_ = w[:, None, None]
-        H_ii = w_ * (JiT @ J_i)
-        H_ij = w_ * (JiT @ J_j)
-        H_jj = w_ * (JjT @ J_j)
-        b_i = w[:, None] * jnp.einsum("eba,eb->ea", J_i, r)
-        b_j = w[:, None] * jnp.einsum("eba,eb->ea", J_j, r)
+        H_ii = w_ * jnp.matmul(JiT, J_i, precision=jax.lax.Precision.HIGHEST)
+        H_ij = w_ * jnp.matmul(JiT, J_j, precision=jax.lax.Precision.HIGHEST)
+        H_jj = w_ * jnp.matmul(JjT, J_j, precision=jax.lax.Precision.HIGHEST)
+        b_i = w[:, None] * jnp.einsum("eba,eb->ea", J_i, r, precision=jax.lax.Precision.HIGHEST)
+        b_j = w[:, None] * jnp.einsum("eba,eb->ea", J_j, r, precision=jax.lax.Precision.HIGHEST)
 
         # dense block assembly (K is small; scatter-add is fine offline)
         Hb = jnp.zeros((k, k, 6, 6), poses.dtype)

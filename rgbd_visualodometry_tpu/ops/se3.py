@@ -1,6 +1,6 @@
 """SE(3) / SO(3) Lie group operations, fully vectorized and differentiable.
 
-TPU-native replacement for ``Sophus::SE3d`` as used by the reference
+Batched replacement for ``Sophus::SE3d`` as used by the reference
 (``include/myslam/common_include.h:36-41``, ``include/myslam/g2o_types.h:56-60``).
 
 Conventions (matching Sophus so the reference's thresholds transfer 1:1):
@@ -21,6 +21,7 @@ selected with `jnp.where`).
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 _EPS = 1e-8
@@ -177,7 +178,7 @@ def _so3_left_jacobian(phi: jnp.ndarray) -> jnp.ndarray:
     )
     W = _hat(phi)
     I = jnp.broadcast_to(jnp.eye(3, dtype=phi.dtype), W.shape)
-    return I + a[..., None, None] * W + b[..., None, None] * (W @ W)
+    return I + a[..., None, None] * W + b[..., None, None] * jnp.matmul(W, W, precision=jax.lax.Precision.HIGHEST)
 
 
 def _so3_left_jacobian_inv(phi: jnp.ndarray) -> jnp.ndarray:
@@ -194,7 +195,7 @@ def _so3_left_jacobian_inv(phi: jnp.ndarray) -> jnp.ndarray:
     )
     W = _hat(phi)
     I = jnp.broadcast_to(jnp.eye(3, dtype=phi.dtype), W.shape)
-    return I - 0.5 * W + cot_term[..., None, None] * (W @ W)
+    return I - 0.5 * W + cot_term[..., None, None] * jnp.matmul(W, W, precision=jax.lax.Precision.HIGHEST)
 
 
 def exp(xi: jnp.ndarray) -> jnp.ndarray:
@@ -206,7 +207,7 @@ def exp(xi: jnp.ndarray) -> jnp.ndarray:
     rho, phi = xi[..., :3], xi[..., 3:6]
     q = so3_exp_quat(phi)
     V = _so3_left_jacobian(phi)
-    t = jnp.einsum("...ij,...j->...i", V, rho)
+    t = jnp.einsum("...ij,...j->...i", V, rho, precision=jax.lax.Precision.HIGHEST)
     return make(q, t)
 
 
@@ -214,7 +215,7 @@ def log(T: jnp.ndarray) -> jnp.ndarray:
     """Pose ``[..., 7]`` -> se(3) tangent ``(rho, phi)[..., 6]``."""
     phi = so3_log(quat(T))
     Vinv = _so3_left_jacobian_inv(phi)
-    rho = jnp.einsum("...ij,...j->...i", Vinv, trans(T))
+    rho = jnp.einsum("...ij,...j->...i", Vinv, trans(T), precision=jax.lax.Precision.HIGHEST)
     return jnp.concatenate([rho, phi], axis=-1)
 
 

@@ -1,7 +1,7 @@
-"""Branch-free batched small linear algebra for TPU.
+"""Branch-free batched small linear algebra.
 
 ``jnp.linalg.svd`` / ``eigh`` lower to generic LAPACK-style loops that are
-expensive for XLA to compile and poorly shaped for the VPU when the
+expensive for XLA to compile and poorly shaped for the device when the
 matrices are tiny (3x3 / 4x4) but the batch is large - exactly this
 framework's workload (RANSAC Kabsch lanes, per-point Schur blocks, DLT
 normal matrices).  This module provides closed-form / fixed-iteration
@@ -18,6 +18,7 @@ alternatives that compile to a handful of fused elementwise ops:
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 
@@ -97,7 +98,7 @@ def cholesky_solve(A: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Solve SPD systems ``A x = b`` with a fully unrolled Cholesky.
 
     A: [..., n, n] (n static, intended n <= 8), b: [..., n].  Unrolled
-    scalar recurrences compile to a handful of fused VPU ops - much cheaper
+    scalar recurrences compile to a handful of fused elementwise ops - much cheaper
     inside an LM iteration loop than a general LU ``jnp.linalg.solve``.
     """
     n = A.shape[-1]
@@ -165,7 +166,7 @@ def kabsch_quat(world: jnp.ndarray, cam: jnp.ndarray) -> jnp.ndarray:
     wc = world.mean(axis=-2, keepdims=True)
     cc = cam.mean(axis=-2, keepdims=True)
     # S[a, b] = sum_i (world_i - wbar)_a (cam_i - cbar)_b
-    S = jnp.einsum("...ka,...kb->...ab", world - wc, cam - cc)
+    S = jnp.einsum("...ka,...kb->...ab", world - wc, cam - cc, precision=jax.lax.Precision.HIGHEST)
     q = horn_quat_from_crosscov(S)
 
     from rgbd_visualodometry_tpu.ops import se3

@@ -1,6 +1,6 @@
 """Batched DLT triangulation with SVD quality gate.
 
-TPU-native equivalent of ``myslam::Triangulation``
+Batched equivalent of ``myslam::Triangulation``
 (``include/myslam/util.h:16-34``): for each landmark, stack two rows per
 observation
 
@@ -22,6 +22,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
 from rgbd_visualodometry_tpu.ops import se3
@@ -65,7 +66,7 @@ def triangulate(
     # 4x4 symmetric matrices compiles far leaner than a [B, 2K, 4] SVD.
     from rgbd_visualodometry_tpu.ops.smalleig import jacobi_eigh_sym
 
-    G = jnp.einsum("...ki,...kj->...ij", A, A)
+    G = jnp.einsum("...ki,...kj->...ij", A, A, precision=jax.lax.Precision.HIGHEST)
     lam, V = jacobi_eigh_sym(G)  # ascending eigenvalues
     v_last = V[..., :, 0]  # null-space direction
     w = v_last[..., 3]
@@ -85,7 +86,7 @@ def triangulate(
     ok = quality & enough
     if min_baseline > 0.0:
         # camera centers c = -R^T t from the T_c_w rows of P
-        c = -jnp.einsum("...ij,...i->...j", P[..., :3, :3], P[..., :3, 3])
+        c = -jnp.einsum("...ij,...i->...j", P[..., :3, :3], P[..., :3, 3], precision=jax.lax.Precision.HIGHEST)
         d2 = jnp.sum((c[..., :, None, :] - c[..., None, :, :]) ** 2, axis=-1)
         pair_ok = obs_mask[..., :, None] & obs_mask[..., None, :]
         span2 = jnp.max(jnp.where(pair_ok, d2, 0.0), axis=(-2, -1))

@@ -3,7 +3,7 @@ descriptor matching over a jax.sharding.Mesh.
 
 The reference is a single-process 3-thread program with no distributed
 backend at all (SURVEY.md section 2c); this package is net-new capability:
-throughput scaling across TPU chips with XLA collectives over ICI.
+throughput scaling across devices with XLA collectives.
 """
 
 from rgbd_visualodometry_tpu.parallel.mesh import (

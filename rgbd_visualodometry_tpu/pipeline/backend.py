@@ -1,6 +1,6 @@
 """Local bundle adjustment over the covisible window - the backend.
 
-TPU-native redesign of ``Backend::Optimize`` (``src/backend.cpp:19-195``),
+Accelerator redesign of ``Backend::Optimize`` (``src/backend.cpp:19-195``),
 which the reference runs on its own thread with g2o LM + CSparse Schur.
 Here the whole solve is one jitted program over fixed-capacity arrays:
 
@@ -13,13 +13,12 @@ Here the whole solve is one jitted program over fixed-capacity arrays:
 - **Points**: non-outlier mappoints observed by window keyframes
   (``backend.cpp:62-81``), marginalized via the explicit Schur complement:
   per-point 3x3 blocks are inverted in closed form and the reduced (P*6)^2
-  camera system is solved densely - P is small, so the MXU eats it.
+  camera system is solved densely - P is small.
 - **Edge layout is per-point**: observations stay in their native ``[MB, M]``
   slot structure (mappoint x observation-slot), so the per-point reductions
   (V, gl) are plain sums over the M axis and the per-pose reductions
-  (U, gp, W) are one-hot matmuls on the MXU - **no scatters in the LM loop**
-  (TPU scatters serialize; the first implementation spent ~300 ms/solve in
-  them, this one is ~100x cheaper per iteration).
+  (U, gp, W) are one-hot matmuls - **no scatters in the LM loop**.  One-hot
+  selections stay exact: their f32 operands run at ``Precision.HIGHEST``.
 - **Robustification**: Huber delta = sqrt(7.815) (``backend.cpp:84``),
   two rounds of 10 LM iterations with chi2 > chi2_th pruning in between;
   pruned observations are *removed from the map* and zero-observation
@@ -144,9 +143,9 @@ def build_problem(cfg: VOConfig, state: VOState, kf: jnp.ndarray) -> _BAProblem:
 
 def _obs_poses(prob: _BAProblem, poses_w: jnp.ndarray) -> jnp.ndarray:
     """Current observer pose per observation slot [MB, M, 7]: free edges read
-    the evolving window estimates (via one-hot matmul - a gather the MXU
-    likes), fixed edges read the frozen map poses."""
-    via = jnp.einsum("pmi,iq->pmq", prob.o_onehot, poses_w)
+    the evolving window estimates (via an exact one-hot matmul), fixed edges
+    read the frozen map poses."""
+    via = jnp.einsum("pmi,iq->pmq", prob.o_onehot, poses_w, precision=jax.lax.Precision.HIGHEST)
     return jnp.where(prob.o_pose_free[..., None], via, prob.fixed_poses)
 
 
@@ -236,10 +235,8 @@ def _lm_phase(cfg, camera, prob, poses0, pts0, obs_mask, iterations, huber_delta
     def body(st: _IterState) -> _IterState:
         # NOTE on formulation: every contraction below with a tiny inner
         # dimension (k=2 residual rows, 3x3 rotations) is written as explicit
-        # broadcast multiply + sum.  As einsums XLA lowers them to batched
-        # dot_generals with 6x3-ish tiles - <2% MXU utilization plus bf16
-        # layout copies - which made one BA iteration ~6 ms; the elementwise
-        # form is pure VPU streaming (~20x faster end to end).
+        # broadcast multiply + sum, which XLA fuses into elementwise loops;
+        # as einsums they lower to batched dot_generals with 6x3-ish tiles.
         e, p_c, e_pose = _residuals(prob, st.poses, st.pts, camera)  # [MB,M,*]
         Jp = lm_ops.pose_jacobian(p_c, camera)  # [MB, M, 2, 6]
         R = se3.quat_to_matrix(se3.quat(e_pose))  # [MB, M, 3, 3]
@@ -264,15 +261,11 @@ def _lm_phase(cfg, camera, prob, poses0, pts0, obs_mask, iterations, huber_delta
         )
         wdp = wd * prob.o_pose_free.astype(jnp.float32)
 
-        # low-precision per-edge block building (f32 accumulation): the
-        # [MB, M, 6, 6]/[6, 3] outer products are pure bandwidth, and bf16
-        # halves the bytes; damping/solve/cost stay f32.  `ba_bf16=False`
-        # restores full f32 end to end.
-        ct = jnp.bfloat16 if getattr(cfg, "ba_bf16", True) else jnp.float32
-        Jp_c, Jl_c = Jp.astype(ct), Jl.astype(ct)
-        Jdpo_c, Jdpt_c = Jd_pose.astype(ct), Jd_pt.astype(ct)
-        w_c, wd_c = w.astype(ct), wd.astype(ct)
-        wp_c, wdp_c = wp.astype(ct), wdp.astype(ct)
+        # The per-edge blocks stay f32.  Rounded to bf16 entry by entry they
+        # are no longer positive semi-definite, and on real windows the
+        # relative rounding (2^-9) exceeds the weakest direction of S: the
+        # Schur complement comes out indefinite, Cholesky returns NaN and
+        # LM rejects every step (PERF.md, bring-up findings).
 
         def outer_k(a, b):
             """sum_k a[..., k, :, None] * b[..., k, None, :] (k = 2 rows)."""
@@ -283,10 +276,9 @@ def _lm_phase(cfg, camera, prob, poses0, pts0, obs_mask, iterations, huber_delta
 
         # per-point blocks: plain sums over the M axis (f32 accumulate)
         V = jnp.sum(
-            w_c[..., None, None] * outer_k(Jl_c, Jl_c)
-            + wd_c[..., None, None] * (Jdpt_c[..., :, None] * Jdpt_c[..., None, :]),
+            w[..., None, None] * outer_k(Jl, Jl)
+            + wd[..., None, None] * (Jd_pt[..., :, None] * Jd_pt[..., None, :]),
             axis=1,
-            dtype=jnp.float32,
         )
         gl = jnp.sum(
             w[..., None] * jnp.sum(Jl * e[..., None], axis=-2)
@@ -294,45 +286,45 @@ def _lm_phase(cfg, camera, prob, poses0, pts0, obs_mask, iterations, huber_delta
             axis=1,
         )
         # per-(point,slot) blocks, then one-hot matmuls to pose space (the
-        # only true matmuls here - [P, MB*M] @ [MB*M, ...] on the MXU)
-        UJp = wp_c[..., None, None] * outer_k(Jp_c, Jp_c) + (
-            wdp_c[..., None, None] * (Jdpo_c[..., :, None] * Jdpo_c[..., None, :])
+        # only true matmuls here - [P, MB*M] @ [MB*M, ...])
+        UJp = wp[..., None, None] * outer_k(Jp, Jp) + (
+            wdp[..., None, None] * (Jd_pose[..., :, None] * Jd_pose[..., None, :])
         )
         MBn, Mn = UJp.shape[0], UJp.shape[1]
-        oh_flat = prob.o_onehot.astype(ct).reshape(MBn * Mn, -1)  # [MB*M, P]
+        oh_flat = prob.o_onehot.reshape(MBn * Mn, -1)  # [MB*M, P]
         U = jax.lax.dot_general(
             oh_flat, UJp.reshape(MBn * Mn, 36),
             dimension_numbers=(((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
+            precision=jax.lax.Precision.HIGHEST,
         ).reshape(-1, 6, 6)
         gpe = wp[..., None] * jnp.sum(Jp * e[..., None], axis=-2) + (
             wdp[..., None] * Jd_pose * r_d[..., None]
         )
         gp = jax.lax.dot_general(
-            oh_flat.astype(jnp.float32), gpe.reshape(MBn * Mn, 6),
+            oh_flat, gpe.reshape(MBn * Mn, 6),
             dimension_numbers=(((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
+            precision=jax.lax.Precision.HIGHEST,
         )
-        WJ = wp_c[..., None, None] * outer_k(Jp_c, Jl_c) + (
-            wdp_c[..., None, None] * (Jdpo_c[..., :, None] * Jdpt_c[..., None, :])
+        WJ = wp[..., None, None] * outer_k(Jp, Jl) + (
+            wdp[..., None, None] * (Jd_pose[..., :, None] * Jd_pt[..., None, :])
         )  # [MB, M, 6, 3]
         # Wt[p, i, :] = sum_m onehot[p, m, i] WJ[p, m, :]: batched
-        # dot_general contracting M (f32 accumulation on the MXU)
+        # dot_general contracting M
         Wt = jax.lax.dot_general(
-            prob.o_onehot.astype(ct), WJ.reshape(MBn, Mn, 18),
+            prob.o_onehot, WJ.reshape(MBn, Mn, 18),
             dimension_numbers=(((1,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32,
+            precision=jax.lax.Precision.HIGHEST,
         ).reshape(MBn, P, 6, 3)
 
         lam = st.lam
         Ud = U + lam * jnp.eye(6, dtype=jnp.float32)[None]
         Vd = V + lam * jnp.eye(3, dtype=jnp.float32)[None]
         Vinv = inv3x3(Vd)
-        Y_ = jnp.einsum("pial,plk->piak", Wt, Vinv)  # [MB, P, 6, 3]
+        Y_ = jnp.einsum("pial,plk->piak", Wt, Vinv, precision=jax.lax.Precision.HIGHEST)  # [MB, P, 6, 3]
 
-        S = -jnp.einsum("piak,pjbk->iajb", Y_, Wt)  # [P, 6, P, 6]
+        S = -jnp.einsum("piak,pjbk->iajb", Y_, Wt, precision=jax.lax.Precision.HIGHEST)  # [P, 6, P, 6]
         S = S.at[diag, :, diag, :].add(Ud)
-        rhs = -(gp - jnp.einsum("piak,pk->ia", Y_, gl))  # [P, 6]
+        rhs = -(gp - jnp.einsum("piak,pk->ia", Y_, gl, precision=jax.lax.Precision.HIGHEST))  # [P, 6]
 
         # freeze fixed / invalid poses: identity rows, zero rhs
         S = S * fm[:, None, None, None] * fm[None, None, :, None]
@@ -342,15 +334,18 @@ def _lm_phase(cfg, camera, prob, poses0, pts0, obs_mask, iterations, huber_delta
         rhs = rhs * fm[:, None]
 
         # Cholesky instead of LU: S is SPD after damping (+ identity rows
-        # for fixed poses), and XLA's pivoting LU lowers to scalar-heavy
-        # code for small systems on TPU
+        # for fixed poses), so the pivoting of LU buys nothing
         Sm = S.reshape(P * 6, P * 6)
         L = jnp.linalg.cholesky(Sm)
         y = jax.scipy.linalg.solve_triangular(L, rhs.reshape(P * 6), lower=True)
         dp = jax.scipy.linalg.solve_triangular(
             L, y, lower=True, trans=1
         ).reshape(P, 6)
-        dl = jnp.einsum("pij,pj->pi", Vinv, -gl - jnp.einsum("piak,ia->pk", Wt, dp))
+        dl = jnp.einsum(
+            "pij,pj->pi", Vinv,
+            -gl - jnp.einsum("piak,ia->pk", Wt, dp, precision=jax.lax.Precision.HIGHEST),
+            precision=jax.lax.Precision.HIGHEST,
+        )
 
         cand_poses = se3.normalize(se3.compose(se3.exp(dp), st.poses))
         cand_poses = jnp.where(free_pose[:, None], cand_poses, st.poses)

@@ -79,7 +79,7 @@ class Relaxation:
     world-frame correction table plus the human-facing report.
 
     Decoupling computation from application is what makes ONLINE loop
-    closure non-stalling (VERDICT r4 task 6): ``compute_relaxation`` runs on
+    closure non-stalling: ``compute_relaxation`` runs on
     a SNAPSHOT of the state (on a worker thread - graph build, Horn edges
     and the pose-graph solve never block the frame loop), and
     ``apply_relaxation`` later deforms whatever the LIVE state has become -

@@ -5,7 +5,7 @@ the Pangolin thread there draws (a) the current camera frustum, (b) all
 mappoints as a colored point cloud (``viewer.cpp:68-86``), and (c) a
 cv::imshow overlay of the current frame with matched keypoints highlighted
 (``viewer.cpp:144-150``).  Here the same three views are rendered on the
-host with matplotlib / numpy - a deliberate design change: the TPU hot loop
+host with matplotlib / numpy - a deliberate design change: the device hot loop
 must never block on rendering, so visualization consumes host-side
 snapshots (``VisualOdometry.map_snapshot``) instead of sharing mutex-guarded
 map objects.

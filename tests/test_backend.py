@@ -10,13 +10,16 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from rgbd_visualodometry_tpu import camera as cam_mod
 from rgbd_visualodometry_tpu import mapstate
 from rgbd_visualodometry_tpu.camera import Camera
 from rgbd_visualodometry_tpu.config import VOConfig
+from rgbd_visualodometry_tpu.io import synthetic
 from rgbd_visualodometry_tpu.ops import se3
 from rgbd_visualodometry_tpu.pipeline import backend
+from rgbd_visualodometry_tpu.pipeline.system import VisualOdometry
 
 
 def small_cfg(**kw):
@@ -225,3 +228,46 @@ def test_ba_robust_to_outlier_depth_measurements():
     # even the points with a corrupted depth edge stay near truth: the
     # robust loss caps the pull
     assert pt_err[np.asarray(bad_pts)].max() < 0.05
+
+
+@pytest.fixture(scope="module")
+def tracked_window():
+    """The state after 15 tracked synthetic frames: a real covisible window
+    (5 keyframes, the pipeline's own map) that local BA has converged."""
+    cfg = small_cfg(
+        number_of_features=300, level_pyramid=4,
+        max_keyframes=32, max_mappoints=4096, max_obs_per_mappoint=8,
+        pnp_max_points=512, triangulation_batch=256, ransac_hypotheses=64,
+        ba_max_poses=8, ba_max_points=2048,
+    )
+    scene = synthetic.SyntheticScene(
+        width=320, height=240, fx=258.6, fy=258.2, cx=159.3, cy=127.6
+    )
+    vo = VisualOdometry(cfg)
+    vo.run((f.rgb, f.depth, f.timestamp) for f in synthetic.generate_sequence(15, scene=scene))
+    assert vo.ba_dispatches >= 1
+    return cfg, vo.state
+
+
+@pytest.mark.parametrize("sigma", [5e-3, 2e-3])
+def test_ba_recovers_kicked_pipeline_window(tracked_window, sigma):
+    """Knock the converged window's free poses off by ``sigma`` (m and rad
+    per axis) and re-solve: BA must bring them back.  Regression for bf16
+    normal-equation blocks, whose indefinite Schur complement made Cholesky
+    return NaN so LM rejected every step and left the poses 1.7-4 mm off."""
+    cfg, state = tracked_window
+    live = np.asarray(state.kf_valid)
+    kf = int(state.num_kf) - 1
+    kick = np.zeros((live.size, 6), np.float32)
+    kick[1:] = np.random.default_rng(0).normal(0.0, sigma, (live.size - 1, 6))
+    kicked = state._replace(kf_pose=se3.compose(se3.exp(jnp.asarray(kick)), state.kf_pose))
+    step = jax.jit(functools.partial(backend.ba_step, cfg, Camera.from_config(cfg)))
+    out_state, out = step(kicked, jnp.int32(kf))
+
+    def dist(a):
+        d = se3.log(se3.compose(a.kf_pose, se3.inverse(state.kf_pose)))
+        return np.linalg.norm(np.asarray(d)[live], axis=1).max()
+
+    assert dist(kicked) > 1e-3
+    assert int(out.num_pruned) == 0
+    assert dist(out_state) < 2e-5, f"kicked {dist(kicked):.2e} -> {dist(out_state):.2e}"

@@ -3,7 +3,7 @@
 BASELINE.json's north star requires ATE RMSE within 5% of the OpenCV/g2o
 reference.  `baseline/opencv_vo.py` is the measured stand-in for that
 reference (same OpenCV kernels + numpy twins of its g2o solvers — see its
-module docstring); this test runs the twin and the TPU pipeline on the SAME
+module docstring); this test runs the twin and the JAX pipeline on the SAME
 synthetic sequence and asserts the contract, plus order-of-magnitude parity
 of the reference's own diagnostic stage counters (frontend.cpp:212-214,243).
 """

@@ -108,3 +108,46 @@ def test_strict_parity_from_yaml_key():
     cfg = VOConfig.from_dict({"strict_parity": 1, "camera.fx": 500.0})
     assert cfg.strict_parity is True and cfg.compat_single_triangulation is True
     assert cfg.camera_fx == 500.0
+
+
+def test_parser_reads_shipped_default_yaml_to_defaults():
+    """configs/default.yaml (OpenCV %YAML:1.0, comments, quoted empty
+    string) parses to exactly the default VOConfig."""
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "configs", "default.yaml")
+    assert load_config(path) == VOConfig()
+
+
+def test_parser_reads_reference_yaml_to_expected_config(tmp_path):
+    p = tmp_path / "ref.yaml"
+    p.write_text(REFERENCE_YAML)
+    assert load_config(str(p)) == VOConfig(
+        dataset_dir="/data/rgbd_dataset_freiburg1_room",
+        output_file="./output/output.txt",
+    )
+
+
+@pytest.mark.parametrize(
+    "text,value",
+    [
+        ("a: 'x # y'  # trailing comment", "x # y"),
+        ('a: "./out dir/t.txt"', "./out dir/t.txt"),
+        ("a: 1e-3", 1e-3),
+        ("a: -7", -7),
+        ("a: true", True),
+        ("a: some/path", "some/path"),
+    ],
+)
+def test_parser_scalars(text, value):
+    from rgbd_visualodometry_tpu.config import _parse_opencv_yaml
+
+    assert _parse_opencv_yaml("%YAML:1.0\n---\n" + text + "\n") == {"a": value}
+
+
+@pytest.mark.parametrize("text", ["camera:\n  fx: 500", "a: [1, 2]", "just a line", "a:"])
+def test_parser_rejects_non_flat_yaml(text):
+    from rgbd_visualodometry_tpu.config import _parse_opencv_yaml
+
+    with pytest.raises(ValueError):
+        _parse_opencv_yaml(text)

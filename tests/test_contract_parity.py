@@ -13,7 +13,7 @@ contract scale on
    throughput config (``bench.multistream_cfg(full_vo=True)``) - so the
    headline FPS configuration is the accuracy-verified configuration.
 
-The cv2/numpy baseline twin and the TPU pipeline consume the SAME rendered
+The cv2/numpy baseline twin and the JAX pipeline consume the SAME rendered
 frames.  These are the slowest tests in the suite (marked ``slow``); frame
 counts are chosen to keep them tractable on the CPU-forced CI while still
 covering several keyframe-window generations and BA cycles.

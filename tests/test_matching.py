@@ -1,8 +1,9 @@
-"""Hamming matching tests: MXU-matmul distances vs a numpy popcount oracle,
+"""Hamming matching tests: int8-matmul distances vs a numpy popcount oracle,
 and the reference's adaptive distance filter (src/frontend.cpp:190-211)."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from rgbd_visualodometry_tpu.ops import matching, packing
 
@@ -117,65 +118,45 @@ def test_compact_best_indices_empty_and_uniform():
     assert all(np.asarray(valid2))
 
 
-def test_hamming_packed_matches_bipolar_matmul():
-    """ops/pallas_match.py oracle: distance from packed uint32 words must
-    equal the bipolar-matmul distance for the same descriptors."""
-    import numpy as np
-
-    from rgbd_visualodometry_tpu.ops import matching
-    from rgbd_visualodometry_tpu.ops.pallas_match import (
-        hamming_matrix_packed,
-        unpack_bipolar,
-    )
-
-    rng = np.random.default_rng(3)
-    bits = rng.integers(0, 2, (64, 256)).astype(np.uint32)
-    packed = (bits.reshape(64, 8, 32) << np.arange(32, dtype=np.uint32)).sum(
+def _random_packed(rng, n):
+    """(packed [n, 8] uint32, bipolar [n, 256] int8) for random bits."""
+    bits = rng.integers(0, 2, (n, 256)).astype(np.uint32)
+    packed = (bits.reshape(n, 8, 32) << np.arange(32, dtype=np.uint32)).sum(
         axis=-1, dtype=np.uint32
     )
-    bip = (bits.astype(np.int8) * 2 - 1).astype(np.int8)
+    return packed, (bits.astype(np.int8) * 2 - 1).astype(np.int8)
+
+
+def test_hamming_packed_matches_bipolar_matmul():
+    """Packed-pool oracle: unpacking inverts orb's packing, and the
+    distance from packed uint32 words equals the bipolar-matmul distance
+    for the same descriptors."""
+    rng = np.random.default_rng(3)
+    packed, bip = _random_packed(rng, 64)
 
     # unpack inverts the pack
     np.testing.assert_array_equal(
-        np.asarray(unpack_bipolar(jnp.asarray(packed))), bip
+        np.asarray(matching.unpack_bipolar(jnp.asarray(packed))), bip
     )
 
     kp = (rng.integers(0, 2, (48, 256)).astype(np.int8) * 2 - 1).astype(np.int8)
     d_ref = np.asarray(matching.hamming_matrix(jnp.asarray(bip), jnp.asarray(kp)))
-    d_new = np.asarray(hamming_matrix_packed(jnp.asarray(packed), jnp.asarray(kp)))
-    np.testing.assert_array_equal(d_ref, d_new)
+    d_new = np.asarray(
+        matching.hamming_matrix_packed_T(jnp.asarray(packed.T.copy()), jnp.asarray(kp))
+    )
+    np.testing.assert_array_equal(d_ref, d_new.T)
     # brute-force spot check
-    a0 = bits[0]
-    b0 = (kp[0] > 0).astype(np.uint32)
+    a0 = bip[0] > 0
+    b0 = kp[0] > 0
     assert d_ref[0, 0] == int((a0 != b0).sum())
 
 
 def test_hamming_packed_T_matches_bipolar_matmul():
-    """C-minor variant oracle (round-5 pool layout): the [8, C] packed pool
-    must yield the same distances as the row-major path, transposed."""
-    import numpy as np
-
-    from rgbd_visualodometry_tpu.ops import matching
-    from rgbd_visualodometry_tpu.ops.pallas_match import (
-        hamming_matrix_packed,
-        hamming_matrix_packed_T,
-    )
-
+    """nearest_keypoints_packed consumes the C-minor [8, C] pool directly
+    and must agree with the dense bipolar path."""
     rng = np.random.default_rng(11)
-    bits = rng.integers(0, 2, (96, 256)).astype(np.uint32)
-    packed = (bits.reshape(96, 8, 32) << np.arange(32, dtype=np.uint32)).sum(
-        axis=-1, dtype=np.uint32
-    )
+    packed, bip = _random_packed(rng, 96)
     kp = (rng.integers(0, 2, (40, 256)).astype(np.int8) * 2 - 1).astype(np.int8)
-    d_row = np.asarray(hamming_matrix_packed(jnp.asarray(packed), jnp.asarray(kp)))
-    d_cm = np.asarray(
-        hamming_matrix_packed_T(jnp.asarray(packed.T.copy()), jnp.asarray(kp))
-    )
-    np.testing.assert_array_equal(d_row, d_cm.T)
-
-    # nearest_keypoints_packed consumes the C-minor pool directly and must
-    # agree with the dense bipolar path
-    bip = (bits.astype(np.int8) * 2 - 1).astype(np.int8)
     kp_mask = jnp.ones(40, bool).at[7].set(False)
     nn_dense = matching.nearest_keypoints(jnp.asarray(bip), jnp.asarray(kp), kp_mask)
     nn_packed = matching.nearest_keypoints_packed(
@@ -183,3 +164,18 @@ def test_hamming_packed_T_matches_bipolar_matmul():
     )
     np.testing.assert_array_equal(np.asarray(nn_dense.distance), np.asarray(nn_packed.distance))
     np.testing.assert_array_equal(np.asarray(nn_dense.kp_index), np.asarray(nn_packed.kp_index))
+
+
+@pytest.mark.parametrize("C", [16384, 16384 - 333])
+def test_hamming_packed_T_exact_at_bench_width(C):
+    """At the bench matching shape (C=16384 pool, N=512 keypoints) the
+    packed path equals the dense bipolar matmul exactly, including a pool
+    width that is not a multiple of any tile size."""
+    rng = np.random.default_rng(C)
+    packed, bip = _random_packed(rng, C)
+    _, kp = _random_packed(rng, 512)
+    d_ref = np.asarray(matching.hamming_matrix(jnp.asarray(bip), jnp.asarray(kp)))
+    d_new = np.asarray(
+        matching.hamming_matrix_packed_T(jnp.asarray(packed.T.copy()), jnp.asarray(kp))
+    )
+    np.testing.assert_array_equal(d_ref.T, d_new)
